@@ -16,7 +16,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from multigridcmt_tpu.utils.cache import enable_compile_cache
+from multigridcmt.utils.cache import enable_compile_cache
 
 enable_compile_cache()
 
@@ -26,9 +26,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import multigridcmt_tpu as mg
-from multigridcmt_tpu.config import SolverConfig
-from multigridcmt_tpu.parallel import sharded
+import multigridcmt as mg
+from multigridcmt.config import SolverConfig
+from multigridcmt.parallel import sharded
 
 
 def main():
@@ -48,9 +48,6 @@ def main():
     p.add_argument("--f64", action="store_true")
     p.add_argument("--multihost", action="store_true",
                    help="call jax.distributed.initialize() first")
-    p.add_argument("--pallas", action="store_true",
-                   help="shard-local Pallas smoothing (kernels/local2d; "
-                        "2D row decomposition — ~3x the jnp local path)")
     args = p.parse_args()
 
     if args.multihost:
@@ -67,13 +64,13 @@ def main():
     else:
         mesh = sharded.make_mesh()
         max_dev = len(jax.devices())
-    # Keep the fine level sharded on small demo grids: the production
-    # agglomeration cutoff (64 rows/device, measured — config.py) can
-    # exceed a toy problem's whole per-device extent.
+    # Keep the fine level sharded on small demo grids: the default
+    # agglomeration cutoff (64 rows/device — config.py) can exceed a toy
+    # problem's whole per-device extent.
     agglom = max(2, min(64, 2 ** args.k // (2 * max_dev)))
     cfg = SolverConfig(ndim=args.ndim, k=args.k, dtype=dtype,
                        smoother="rbgs", cycle=args.cycle, tol=args.tol,
-                       use_pallas=args.pallas, agglom_rows=agglom)
+                       agglom_rows=agglom)
     solver = sharded.ShardedSolver(cfg, mesh)
 
     if args.eigen:

@@ -7,7 +7,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from multigridcmt_tpu.utils.cache import enable_compile_cache
+from multigridcmt.utils.cache import enable_compile_cache
 
 enable_compile_cache()
 
@@ -16,7 +16,7 @@ import argparse
 import numpy as np
 import jax.numpy as jnp
 
-import multigridcmt_tpu as mg
+import multigridcmt as mg
 
 
 def main():
@@ -46,7 +46,7 @@ def main():
         print(f"  lambda_{i + 1} = {lam:.8f}")
     print(f"  (continuum lambda_1 = 2 pi^2 = {2 * np.pi ** 2:.8f})")
     if args.plot:
-        from multigridcmt_tpu.utils.plots import plot_eigenmodes
+        from multigridcmt.utils.plots import plot_eigenmodes
         plot_eigenmodes(np.asarray(res.eigenvectors)[:, 1:-1, 1:-1],
                         prob.config.n, 2,
                         res.eigenvalues, args.plot)

@@ -6,7 +6,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from multigridcmt_tpu.utils.cache import enable_compile_cache
+from multigridcmt.utils.cache import enable_compile_cache
 
 enable_compile_cache()
 
@@ -14,14 +14,13 @@ import argparse
 
 import jax.numpy as jnp
 
-import multigridcmt_tpu as mg
+import multigridcmt as mg
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--k", type=int, default=10, help="finest grid exponent")
     p.add_argument("--f64", action="store_true")
-    p.add_argument("--pallas", action="store_true")
     p.add_argument("--plot", metavar="FILE", default=None,
                    help="write an error-vs-h PNG with an O(h^2) guide")
     p.add_argument("--cubic", action="store_true",
@@ -34,7 +33,6 @@ def main():
     ns, errs = [], []
     for k in range(max(5, args.k - 2), args.k + 1):
         prob = mg.poisson2d(k=k, smoother="rbgs", dtype=dtype,
-                            use_pallas=args.pallas,
                             fmg_prolong="cubic" if args.cubic
                             else "linear")
         solver = mg.MultigridSolver(prob)
@@ -45,7 +43,7 @@ def main():
         errs.append(err)
         prev = err
     if args.plot:
-        from multigridcmt_tpu.utils.plots import plot_error_convergence
+        from multigridcmt.utils.plots import plot_error_convergence
         plot_error_convergence(ns, errs, args.plot)
 
 

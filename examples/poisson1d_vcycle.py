@@ -6,7 +6,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from multigridcmt_tpu.utils.cache import enable_compile_cache
+from multigridcmt.utils.cache import enable_compile_cache
 
 enable_compile_cache()
 
@@ -14,8 +14,8 @@ import argparse
 
 import jax.numpy as jnp
 
-import multigridcmt_tpu as mg
-from multigridcmt_tpu.utils.metrics import MetricsLogger
+import multigridcmt as mg
+from multigridcmt.utils.metrics import MetricsLogger
 
 
 def main():
@@ -36,7 +36,7 @@ def main():
     res = mg.MultigridSolver(prob).solve()
     MetricsLogger().log_solve_result(res, prob.config)
     if args.plot:
-        from multigridcmt_tpu.utils.plots import plot_residual_history
+        from multigridcmt.utils.plots import plot_residual_history
         plot_residual_history(
             {f"V(2,2) w-Jacobi, n={prob.config.n}": res.res_history},
             args.plot, title="1D Poisson V-cycle residual history")

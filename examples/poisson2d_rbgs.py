@@ -5,7 +5,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from multigridcmt_tpu.utils.cache import enable_compile_cache
+from multigridcmt.utils.cache import enable_compile_cache
 
 enable_compile_cache()
 
@@ -13,8 +13,8 @@ import argparse
 
 import jax.numpy as jnp
 
-import multigridcmt_tpu as mg
-from multigridcmt_tpu.utils.metrics import MetricsLogger
+import multigridcmt as mg
+from multigridcmt.utils.metrics import MetricsLogger
 
 
 def main():
@@ -24,26 +24,17 @@ def main():
     p.add_argument("--tol", type=float, default=1e-8)
     p.add_argument("--plot", metavar="FILE", default=None,
                    help="write a residual-history PNG (reference-style)")
-    p.add_argument("--pallas", action="store_true",
-                   help="route stencils through the Pallas TPU kernels")
     p.add_argument("--method", choices=("mg", "pcg"), default="mg",
                    help="stationary V-cycles or MG-preconditioned CG")
-    p.add_argument("--bf16-precond", action="store_true",
-                   help="run the PCG V-cycle preconditioner in bfloat16 "
-                        "(packed-Pallas fine levels only — see "
-                        "SolverConfig.precond_dtype)")
     args = p.parse_args()
 
     min_coarse = 2 ** (args.k - args.levels + 1) - 1
     prob = mg.poisson2d(k=args.k, smoother="rbgs", tol=args.tol,
-                        min_coarse=min_coarse, use_pallas=args.pallas,
-                        dtype=jnp.float32,
-                        precond_dtype=(jnp.bfloat16 if args.bf16_precond
-                                       else None))
+                        min_coarse=min_coarse, dtype=jnp.float32)
     assert prob.hierarchy.num_levels == args.levels
     res = mg.MultigridSolver(prob).solve(method=args.method)
     if args.plot:
-        from multigridcmt_tpu.utils.plots import plot_residual_history
+        from multigridcmt.utils.plots import plot_residual_history
         plot_residual_history(
             {f"V(2,2) RBGS, n={prob.config.n}^2": res.res_history},
             args.plot, title="2D Poisson V-cycle residual history")

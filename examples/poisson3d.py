@@ -7,7 +7,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from multigridcmt_tpu.utils.cache import enable_compile_cache
+from multigridcmt.utils.cache import enable_compile_cache
 
 enable_compile_cache()
 
@@ -16,7 +16,7 @@ import argparse
 import numpy as np
 import jax.numpy as jnp
 
-import multigridcmt_tpu as mg
+import multigridcmt as mg
 
 
 def main():
@@ -28,15 +28,10 @@ def main():
     p.add_argument("--cycle", choices=["v", "w", "fmg"], default="v")
     p.add_argument("--tol", type=float, default=1e-9)
     p.add_argument("--f32", action="store_true", help="float32 (default f64)")
-    p.add_argument("--pallas", action="store_true",
-                   help="plane-rolling 3D Pallas kernels for RB-GS fine "
-                        "levels (kernels/stencil3d; jacobi/chebyshev stay "
-                        "on the XLA tier by measurement — see "
-                        "cycles.get_backend)")
     args = p.parse_args()
 
     prob = mg.poisson3d(k=args.k, smoother=args.smoother, cycle=args.cycle,
-                        tol=args.tol, use_pallas=args.pallas,
+                        tol=args.tol,
                         dtype=jnp.float32 if args.f32 else jnp.float64)
     solver = mg.MultigridSolver(prob)
     res = solver.solve(method=args.method)

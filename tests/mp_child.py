@@ -6,7 +6,7 @@ of the suite fakes in one process. Exercises the process-safe host I/O of
 ``ShardedSolver`` (``_to_global`` / ``_to_host``): a global
 ``device_put``/``device_get`` of the old code throws on non-addressable
 shards under ``jax.distributed``, which is exactly what this run guards
-against (SURVEY.md §4.4, VERDICT.md round-2 item 3).
+against (SURVEY.md §4.4).
 
 Usage: python mp_child.py <coordinator_port> <num_processes> <process_id>
 """
@@ -35,10 +35,10 @@ def main():
 
     import jax.numpy as jnp
 
-    from multigridcmt_tpu.config import SolverConfig
-    from multigridcmt_tpu.grids import build_hierarchy, pad_interior
-    from multigridcmt_tpu.parallel import sharded
-    from multigridcmt_tpu.solvers import cycles, eigen
+    from multigridcmt.config import SolverConfig
+    from multigridcmt.grids import build_hierarchy, pad_interior
+    from multigridcmt.parallel import sharded
+    from multigridcmt.solvers import cycles, eigen
 
     # agglom_rows=4 at k=5 on 8 row-devices: level 0 (4 local rows)
     # sharded, level 1 (2 local rows) agglomerated — both regimes crossed,
@@ -61,7 +61,7 @@ def main():
     err = float(np.max(np.abs(np.asarray(res.x) - np.asarray(ref.x))))
     assert err < 1e-9, err
 
-    # Resume path under real jax.distributed (VERDICT.md round-3 item 3):
+    # Resume path under real jax.distributed:
     # a capped partial solve warm-starts to convergence in fewer cycles.
     import dataclasses
 

@@ -1,7 +1,7 @@
 """Pure NumPy/SciPy mini-reference implementation — the oracle.
 
 The reference repo (AndyMN/MultigridCMT) could not be mounted this round
-(SURVEY.md §0: /root/reference is empty), so per SURVEY.md §4.3 this module
+(SURVEY.md §0: the reference repo was not available), so per SURVEY.md §4.3 this module
 is the stand-in oracle: a straightforward single-process SciPy geometric
 multigrid with exactly the algorithmic choices the reference's capability
 spec pins down (BASELINE.json:5) — weighted Jacobi (omega 2/3 / 4/5),
@@ -9,7 +9,7 @@ red-black Gauss-Seidel (red = even coordinate-sum first), full-weighting
 restriction, bilinear prolongation, recursive V-cycle / FMG with a direct
 coarsest solve, and an inverse-iteration eigensolver.
 
-The TPU build must reproduce this oracle's residual histories step-for-step
+The JAX build must reproduce this oracle's residual histories step-for-step
 at float64 (same omega, same sweep order) — that is the "match the reference
 Python/SciPy results" contract of BASELINE.json.
 
@@ -211,7 +211,10 @@ def eigensolve(n, ndim, h, k=1, tol=1e-8, max_iters=100, inner_cycles=2,
 
 
 def eigsh_oracle(n, ndim, h, k=1):
-    """scipy.sparse.linalg.eigsh smallest-eigenvalue oracle."""
-    a = laplacian_matrix(n, ndim, h)
-    vals = spla.eigsh(a, k=k, which="SM", return_eigenvectors=False)
+    """scipy.sparse.linalg.eigsh smallest-eigenvalue oracle (shift-invert
+    about 0: the operator is SPD, so the eigenvalues nearest 0 are the
+    smallest, found in seconds even at 511^2)."""
+    a = laplacian_matrix(n, ndim, h).tocsc()
+    vals = spla.eigsh(a, k=k, sigma=0, which="LM",
+                      return_eigenvectors=False)
     return np.sort(vals)

@@ -8,9 +8,9 @@ import pytest
 import scipy.sparse
 import scipy.sparse.linalg
 
-import multigridcmt_tpu as mg
-from multigridcmt_tpu.grids import interior, pad_interior
-from multigridcmt_tpu.ops import laplacian, smoothers, transfer
+import multigridcmt as mg
+from multigridcmt.grids import interior, pad_interior
+from multigridcmt.ops import laplacian, smoothers, transfer
 
 
 def _pad(a):
@@ -119,7 +119,7 @@ def test_eigensolve_3d_ground_state():
 
 
 def test_sparse_formats_3d_match_dense():
-    from multigridcmt_tpu.ops import sparse
+    from multigridcmt.ops import sparse
 
     n, h = 4, 1.0 / 5.0
     a_dense = laplacian.dense_operator(n, 3, h)
@@ -140,7 +140,7 @@ def test_sparse_formats_3d_match_dense():
 
 def test_transfer_matrices_3d():
     """Explicit CSR P/R agree with the stencil ops and P = 8 R^T."""
-    from multigridcmt_tpu.ops import sparse
+    from multigridcmt.ops import sparse
 
     nc = 3
     p = sparse.csr_to_scipy(sparse.prolongation_csr(nc, 3, jnp.float64))

@@ -1,34 +1,25 @@
-"""Communication-structure audit (VERDICT.md round-4 item 4): the
-ppermute count of one sharded cycle, read off the traced jaxpr, must
-equal the structural minimum the runtime is designed to emit — the only
-machine-checkable stand-in for "halo exchange overlapped and not
-duplicated" without multi-chip hardware.
+"""Communication-structure audit: the ppermute count of one sharded
+cycle, read off the traced jaxpr, must equal the structural minimum the
+runtime is designed to emit — the machine-checkable stand-in for "halo
+exchange overlapped and not duplicated".
 
-Derivations (one "pair" = one near + one far slab ppermute per sharded
-axis; each is a separate jaxpr eqn, so a pair = 2 eqns per axis):
-
-* Whole-leg kernel path, L leg levels, coarse agglomerated below: the
-  cycle entry builds x's and b's extended tiles (2 pairs); each leg
-  level refreshes the smoothed tile before its up leg (L pairs); each
-  leg-to-leg crossing refreshes the coarse RHS going down and the
-  correction coming up (2(L-1) pairs). Total 3L pairs; the
-  agglomeration crossing is 1 all_gather per axis and no ppermute.
-
-* jnp path, S sharded levels, rbgs nu1=nu2=nu: each half-sweep is one
-  overlapped exchange (2 eqns), so smoothing costs 4nu eqns per stage;
-  the residual 2; restriction reads only the far halo (1 eqn) and
-  prolongation only the near halo (1); the last sharded level's
-  prolongation is replaced by the agglomeration gather/scatter (0).
-  Total S*(8nu + 3) + (S - 1) eqns.
+Derivation for the masked jnp tier (one "eqn" = one ppermute of one slab
+along one sharded axis), S sharded levels, rbgs nu1 = nu2 = nu: each
+half-sweep is one overlapped exchange (a near and a far slab per axis: 2
+eqns per axis), so the 2*nu sweeps of a level cost 8*nu eqns per axis;
+the residual 2; restriction reads only the far halo (1) and prolongation
+only the near halo (1); the last sharded level's prolongation is replaced
+by the agglomeration gather/scatter (0). Total per axis
+S*(8nu + 3) + (S - 1); the agglomeration crossing is one all_gather per
+axis.
 """
 import jax
 import jax.numpy as jnp
 import pytest
 
-from multigridcmt_tpu import kernels
-from multigridcmt_tpu.config import SolverConfig
-from multigridcmt_tpu.parallel import sharded
-from multigridcmt_tpu.utils import comm_audit
+from multigridcmt.config import SolverConfig
+from multigridcmt.parallel import sharded
+from multigridcmt.utils import comm_audit
 
 needs_8 = pytest.mark.skipif(len(jax.devices()) < 8,
                              reason="needs 8 (virtual) devices")
@@ -41,29 +32,33 @@ def _audit_cycle(cfg, mesh):
     return comm_audit.audit(s.v_cycle_fn(), jnp.zeros_like(b_sh), b_sh)
 
 
+def _sharded_levels(cfg, mesh):
+    dec = sharded.decomp_from_mesh(mesh, cfg.ndim)
+    lev = 0
+    while sharded._is_sharded(cfg, dec, lev):
+        lev += 1
+    return lev
+
+
 @needs_8
 @pytest.mark.parametrize("mesh_kind,naxes", [("rows", 1), ("block", 2)])
-def test_leg_path_ppermute_minimum(mesh_kind, naxes, monkeypatch):
-    """Whole-leg path: 3L pairs (L = 4 leg levels at k=8 with the
-    thresholds patched), one all_gather per axis at the agglomeration
-    crossing, nothing else."""
-    monkeypatch.setattr(kernels, "PALLAS_MIN_N", 30)
+def test_leg_path_ppermute_minimum(mesh_kind, naxes):
+    """Masked jnp tier at k=8 with four sharded levels on a rows (4,) and
+    a blocks (2, 2) mesh: S*(8nu+3) + (S-1) eqns per sharded axis, one
+    all_gather per axis at the agglomeration crossing, nothing else."""
     if mesh_kind == "rows":
         mesh = sharded.make_mesh(jax.devices()[:4])
-        agglom = 8        # leg levels 0..3, level 4 agglomerated
+        agglom = 8        # levels 0..3 sharded, level 4 agglomerated
     else:
         mesh = sharded.make_block_mesh((2, 2))
-        agglom = 16       # same L on the 2-axis mesh
+        agglom = 16       # same S on the 2-axis mesh
     cfg = SolverConfig(ndim=2, k=8, dtype=jnp.float64, smoother="rbgs",
-                       use_pallas=True, agglom_rows=agglom)
-    dec = sharded.decomp_from_mesh(mesh, 2)
-    lev = 0
-    while sharded._leg_level_ok(cfg, dec, lev):
-        lev += 1
-    assert lev == 4 and not sharded._is_sharded(cfg, dec, lev)
+                       agglom_rows=agglom)
+    s_lev = _sharded_levels(cfg, mesh)
+    assert s_lev == 4
     res = _audit_cycle(cfg, mesh)
-    pairs = 3 * lev
-    assert res["counts"]["ppermute"] == 2 * pairs * naxes, res
+    per_axis = s_lev * (8 * cfg.nu1 + 3) + (s_lev - 1)
+    assert res["counts"]["ppermute"] == per_axis * naxes, res
     assert res["counts"]["all_gather"] == naxes, res
     assert "all_to_all" not in res["counts"]
 
@@ -88,22 +83,19 @@ def test_jnp_path_ppermute_minimum():
 
 @needs_8
 def test_leg_path_exchanged_bytes_reported():
-    """The audit's byte accounting is sane: per-device ppermute bytes of
-    one leg cycle are positive and bounded by a few fine-tile halos."""
-    kernels_min = 30
-    import multigridcmt_tpu.kernels as k
-
-    orig = k.PALLAS_MIN_N
-    k.PALLAS_MIN_N = kernels_min
-    try:
-        mesh = sharded.make_mesh(jax.devices()[:4])
-        cfg = SolverConfig(ndim=2, k=8, dtype=jnp.float64,
-                           smoother="rbgs", use_pallas=True,
-                           agglom_rows=8)
-        res = _audit_cycle(cfg, mesh)
-    finally:
-        k.PALLAS_MIN_N = orig
-    nb = res["bytes"]["ppermute"]
-    # 12 pairs, each slab <= 8 rows x c lanes x 8 bytes at the fine
-    # level (c = 384 at k=8), halved per coarser level.
-    assert 0 < nb < 24 * 8 * 384 * 8
+    """The audit's byte accounting matches the derivation: on a rows mesh
+    every slab is one padded row of its level (width 2^(k-l) + 1), and
+    level l's prolongation exchanges a row of the coarser level l+1."""
+    mesh = sharded.make_mesh(jax.devices()[:4])
+    cfg = SolverConfig(ndim=2, k=8, dtype=jnp.float64, smoother="rbgs",
+                       agglom_rows=8)
+    s_lev = _sharded_levels(cfg, mesh)
+    res = _audit_cycle(cfg, mesh)
+    item = 8
+    want = 0
+    for lev in range(s_lev):
+        width = 2 ** (cfg.k - lev) + 1
+        want += (8 * cfg.nu1 + 3) * width * item     # sweeps, residual,
+        if lev < s_lev - 1:                          # restriction
+            want += (2 ** (cfg.k - lev - 1) + 1) * item  # prolongation
+    assert res["bytes"]["ppermute"] == want, res

@@ -1,13 +1,13 @@
-"""Cycle-driver integration tests — the BASELINE.md configs at CPU-sized
+"""Cycle-driver integration tests — the BASELINE.json configs at CPU-sized
 grids, plus step-for-step residual-history match against the SciPy
 mini-reference (SURVEY.md §4.3)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import multigridcmt_tpu as mg
-from multigridcmt_tpu.grids import interior
-from multigridcmt_tpu.solvers import cycles
+import multigridcmt as mg
+from multigridcmt.grids import interior
+from multigridcmt.solvers import cycles
 
 import reference_impl as ref
 
@@ -118,8 +118,8 @@ def test_fmg_prolong_cubic_order():
     """transfer.fmg_prolong interpolates sin(pi x) at 4th order: the
     interpolation-error ratio between successive grids is ~16 (vs ~4 for
     the linear prolong)."""
-    from multigridcmt_tpu.grids import pad_interior
-    from multigridcmt_tpu.ops import transfer
+    from multigridcmt.grids import pad_interior
+    from multigridcmt.ops import transfer
 
     errs = []
     for k in (5, 6, 7):
@@ -146,8 +146,8 @@ def test_fmg_cubic_beats_linear(k):
     for the linear walk on the model problem: its larger algebraic
     leftover happens to partially cancel the discretization error.
     Discretization accuracy itself is asserted too."""
-    from multigridcmt_tpu.grids import build_hierarchy
-    from multigridcmt_tpu.solvers import cycles
+    from multigridcmt.grids import build_hierarchy
+    from multigridcmt.solvers import cycles
 
     prob = mg.poisson2d(k=k, dtype=jnp.float64, smoother="rbgs",
                         tol=1e-12)

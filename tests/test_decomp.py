@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-import multigridcmt_tpu as mg
-from multigridcmt_tpu.config import SolverConfig
-from multigridcmt_tpu.grids import interior
-from multigridcmt_tpu.parallel import sharded
+import multigridcmt as mg
+from multigridcmt.config import SolverConfig
+from multigridcmt.grids import interior
+from multigridcmt.parallel import sharded
 
 
 needs_8 = pytest.mark.skipif(len(jax.devices()) < 8,
@@ -47,7 +47,7 @@ def _run_blocked(fn, mesh, decomp, *arrays):
 @needs_8
 @pytest.mark.parametrize("shape", [(4, 2), (2, 4), (2, 2)])
 def test_block_residual_matches(shape):
-    from multigridcmt_tpu.ops import laplacian
+    from multigridcmt.ops import laplacian
 
     k = 4
     n = 2 ** k - 1
@@ -71,7 +71,7 @@ def test_block_residual_matches(shape):
 def test_block_rbgs_sweep_matches():
     """RB-GS across both shard axes == single-device sweep (corner halos
     and inter-color halo refresh must both be right)."""
-    from multigridcmt_tpu.ops import smoothers
+    from multigridcmt.ops import smoothers
 
     k = 4
     n = 2 ** k - 1
@@ -93,7 +93,7 @@ def test_block_rbgs_sweep_matches():
 
 @needs_8
 def test_block_transfer_matches():
-    from multigridcmt_tpu.ops import transfer
+    from multigridcmt.ops import transfer
 
     k = 4
     n = 2 ** k - 1
@@ -155,7 +155,7 @@ def test_block_fmg_matches_unsharded():
 
 @needs_8
 def test_block_pcg_matches_unsharded():
-    from multigridcmt_tpu.solvers import krylov
+    from multigridcmt.solvers import krylov
 
     cfg = SolverConfig(ndim=2, k=6, dtype=jnp.float64, smoother="chebyshev",
                        tol=1e-9, agglom_rows=4)
@@ -217,7 +217,7 @@ def test_3d_pencil_solve_matches_unsharded():
 @needs_8
 def test_3d_plane_eigensolve():
     """Smallest 3D eigenvalue on the slab decomposition vs analytic."""
-    from multigridcmt_tpu.ops import laplacian
+    from multigridcmt.ops import laplacian
 
     k_grid = 4
     cfg = SolverConfig(ndim=3, k=k_grid, dtype=jnp.float64, smoother="rbgs",
@@ -262,7 +262,7 @@ def test_sharded_lobpcg_matches_unsharded(mesh_kind):
     assert int(got.iters) == int(ref.iters)
     np.testing.assert_allclose(np.asarray(got.eigenvalues),
                                np.asarray(ref.eigenvalues), rtol=1e-8)
-    from multigridcmt_tpu.ops import laplacian
+    from multigridcmt.ops import laplacian
     n = 2 ** k_grid - 1
     h = 1.0 / (n + 1)
     want = sorted(laplacian.eigenvalue_2d(i, j, n, h)

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import multigridcmt_tpu as mg
-from multigridcmt_tpu.ops import laplacian
+import multigridcmt as mg
+from multigridcmt.ops import laplacian
 
 import reference_impl as ref
 
@@ -144,7 +144,7 @@ def test_lobpcg_eigenvector_quality():
     gram = v @ v.T
     np.testing.assert_allclose(gram, np.eye(2), atol=1e-9)
     h = prob.config.h
-    from multigridcmt_tpu.ops import laplacian as lap
+    from multigridcmt.ops import laplacian as lap
     for i in range(2):
         av = np.asarray(lap.apply_poisson(
             jnp.asarray(res.eigenvectors[i]), h))[1:-1, 1:-1].ravel()

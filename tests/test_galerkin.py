@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multigridcmt_tpu.ops import laplacian, sparse, transfer
+from multigridcmt.ops import laplacian, sparse, transfer
 
 
 def _dense(a):

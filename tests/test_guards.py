@@ -10,10 +10,10 @@ sigma above lambda_min) for the eigensolver.
 import jax.numpy as jnp
 import numpy as np
 
-from multigridcmt_tpu.config import SolverConfig
-from multigridcmt_tpu.grids import build_hierarchy, pad_interior
-from multigridcmt_tpu.parallel import sharded
-from multigridcmt_tpu.solvers import cycles, eigen
+from multigridcmt.config import SolverConfig
+from multigridcmt.grids import build_hierarchy, pad_interior
+from multigridcmt.parallel import sharded
+from multigridcmt.solvers import cycles, eigen
 
 
 def _rhs(n, seed=0):

@@ -6,8 +6,8 @@ import pytest
 import scipy.sparse
 import scipy.sparse.linalg
 
-import multigridcmt_tpu as mg
-from multigridcmt_tpu.grids import interior
+import multigridcmt as mg
+from multigridcmt.grids import interior
 
 
 def _scipy_solution(prob):

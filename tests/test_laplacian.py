@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from multigridcmt_tpu.grids import interior, pad_interior
-from multigridcmt_tpu.ops import laplacian
+from multigridcmt.grids import interior, pad_interior
+from multigridcmt.ops import laplacian
 
 from reference_impl import laplacian_matrix
 

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multigridcmt_tpu.grids import interior, pad_interior
-from multigridcmt_tpu.ops import smoothers
+from multigridcmt.grids import interior, pad_interior
+from multigridcmt.ops import smoothers
 
 import reference_impl as ref
 
@@ -174,7 +174,7 @@ def test_chebyshev_smoothing_factor_beats_jacobi():
 def test_chebyshev_vcycle_converges_grid_independent():
     """V(2,2) with the Chebyshev smoother: rho < 0.25, iteration count
     independent of grid size (the defining multigrid property)."""
-    import multigridcmt_tpu as mg
+    import multigridcmt as mg
 
     iters = []
     for k in (5, 6):
@@ -188,27 +188,9 @@ def test_chebyshev_vcycle_converges_grid_independent():
     assert abs(iters[0] - iters[1]) <= 1
 
 
-def test_chebyshev_pallas_backend_matches_jnp():
-    """kernels backend (Pallas residual, interpreter on CPU) == jnp path."""
-    from multigridcmt_tpu.grids import from_aligned, to_aligned
-    from multigridcmt_tpu.kernels import PALLAS_BACKEND
-
-    n = 255      # >= PALLAS_MIN_N so the Pallas residual kernel is used
-    h = 1.0 / (n + 1)
-    rng = np.random.default_rng(8)
-    u = _pad(np.asarray(rng.standard_normal((n, n)), dtype=np.float32))
-    b = _pad(np.asarray(rng.standard_normal((n, n)), dtype=np.float32))
-    want = smoothers.chebyshev(u, b, h, degree=3)
-    got_a = PALLAS_BACKEND.smooth(to_aligned(u), to_aligned(b), n, h,
-                                  kind="chebyshev", omega=0.8, sweeps=3)
-    got = from_aligned(got_a, n)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-5, atol=2e-5)
-
-
 def test_chebyshev_degree_zero_is_identity():
-    """sweeps=0 must be a no-op for every smoother kind (ADVICE r1: the
-    chebyshev recurrence used to apply one step before its degree loop)."""
+    """sweeps=0 must be a no-op for every smoother kind (the chebyshev
+    recurrence once applied one step before its degree loop)."""
     n = 31
     h = 1.0 / (n + 1)
     rng = np.random.default_rng(3)

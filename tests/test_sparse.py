@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multigridcmt_tpu.ops import sparse
+from multigridcmt.ops import sparse
 
 from reference_impl import laplacian_matrix
 
@@ -58,3 +58,40 @@ def test_coo_to_csr_roundtrip():
     csr = sparse.coo_to_csr(coo)
     want = laplacian_matrix(n, 2, h)
     assert (sparse.csr_to_scipy(csr) != want).nnz == 0
+
+
+# Single-tile and multi-thousand lengths, non-multiple-of-128 sizes, and a
+# 2D size whose +-n offsets are not powers of two.
+DIA_CASES = [(1023, 1), (4097, 1), (31, 2), (63, 2), (100, 2)]
+
+
+@pytest.mark.parametrize("n,ndim", DIA_CASES)
+@pytest.mark.parametrize("dtype,rtol", [(jnp.float64, 1e-12),
+                                        (jnp.float32, 1e-5)])
+def test_spmv_dia_sizes_match_scipy(n, ndim, dtype, rtol):
+    """DIA SpMV (the XLA version) against scipy.sparse, relative to the
+    output's scale (entries scale with 1/h^2)."""
+    h = 1.0 / (n + 1)
+    a = sparse.laplacian_dia(n, ndim, h, dtype=dtype)
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(a.shape[1]).astype(np.dtype(dtype))
+    want = laplacian_matrix(n, ndim, h) @ x.astype(np.float64)
+    got = np.asarray(sparse.spmv_dia(a, jnp.asarray(x)), dtype=np.float64)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype,rtol", [(jnp.float64, 1e-12),
+                                        (jnp.float32, 1e-4)])
+def test_spmv_dia_chained(dtype, rtol):
+    """y = A(A(x)) through two DIA SpMVs == scipy's A @ (A @ x)."""
+    n, ndim = 63, 2
+    h = 1.0 / (n + 1)
+    a = sparse.laplacian_dia(n, ndim, h, dtype=dtype)
+    x = np.random.default_rng(3).standard_normal(a.shape[1]) * (h * h)
+    a_sp = laplacian_matrix(n, ndim, h)
+    want = a_sp @ (a_sp @ x)
+    got = np.asarray(sparse.spmv_dia(a, sparse.spmv_dia(
+        a, jnp.asarray(x, dtype))), dtype=np.float64)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * np.abs(want).max())

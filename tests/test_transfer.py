@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multigridcmt_tpu.grids import interior, pad_interior
-from multigridcmt_tpu.ops import transfer
+from multigridcmt.grids import interior, pad_interior
+from multigridcmt.ops import transfer
 
 import reference_impl as ref
 
@@ -73,10 +73,9 @@ def test_restrict_1d_stencil_values():
 
 
 def test_3d_minor_axis_matmul_passes_match_sliced(monkeypatch):
-    """The large-3D minor-axis MXU transfer passes (round 5: the jnp
-    stride-2 slicing forced full-array relayouts — 43% of the 511^3
-    sharded cycle) compute exactly the sliced passes' values."""
-    from multigridcmt_tpu.ops import transfer
+    """The large-3D minor-axis matmul transfer passes compute exactly the
+    sliced passes' values."""
+    from multigridcmt.ops import transfer
 
     rng = np.random.default_rng(3)
     f = jnp.asarray(rng.standard_normal((17, 33, 65)))

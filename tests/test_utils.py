@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import multigridcmt_tpu as mg
-from multigridcmt_tpu.utils import checkpoint, metrics
+import multigridcmt as mg
+from multigridcmt.utils import checkpoint, metrics
 
 
 def test_metrics_logger_jsonl():
@@ -67,13 +67,12 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_sharded_checkpoint_resume(tmp_path):
-    """Distributed checkpoint/resume (SURVEY.md §5, VERDICT.md round-3
-    item 3): a ShardedSolver warm-starts from a snapshot on the 8-device
+    """Distributed checkpoint/resume (SURVEY.md §5): a ShardedSolver warm-starts from a snapshot on the 8-device
     mesh and beats the cold solve."""
     pytest.importorskip("orbax.checkpoint")
     import dataclasses
 
-    from multigridcmt_tpu.parallel import sharded
+    from multigridcmt.parallel import sharded
 
     prob = mg.poisson2d(k=5, dtype=jnp.float64, smoother="rbgs",
                         tol=1e-10, max_iters=3, agglom_rows=4)
@@ -101,7 +100,7 @@ def test_sharded_fmg_resume_skips_fmg():
     (static skip_fmg branch) instead of redoing FMG from scratch."""
     import dataclasses
 
-    from multigridcmt_tpu.parallel import sharded
+    from multigridcmt.parallel import sharded
 
     prob = mg.poisson2d(k=5, dtype=jnp.float64, smoother="rbgs",
                         cycle="fmg", tol=1e-10, max_iters=40,
@@ -121,7 +120,7 @@ def test_debug_checked_catches_nan():
     import pytest
     from jax.experimental import checkify
 
-    from multigridcmt_tpu.utils import debug
+    from multigridcmt.utils import debug
 
     def bad(x):
         y = jnp.sqrt(x)  # NaN for negative input
@@ -137,7 +136,7 @@ def test_debug_checked_catches_nan():
 def test_debug_mode_restores_flag():
     import jax
 
-    from multigridcmt_tpu.utils import debug
+    from multigridcmt.utils import debug
 
     before = jax.config.jax_debug_nans
     with debug.debug_mode():
@@ -146,8 +145,7 @@ def test_debug_mode_restores_flag():
 
 
 def test_eigensolve_resume_beats_cold(tmp_path):
-    """Eigensolver warm-start + checkpoint resume (VERDICT.md round-4
-    item 7): resuming from a partially converged eigenvector block on
+    """Eigensolver warm-start + checkpoint resume: resuming from a partially converged eigenvector block on
     the 8-device mesh takes fewer outer iterations than a cold start,
     and reaches the same eigenvalue; resume_solve dispatches on the
     eigen snapshot."""
@@ -155,8 +153,8 @@ def test_eigensolve_resume_beats_cold(tmp_path):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from multigridcmt_tpu.config import SolverConfig
-    from multigridcmt_tpu.parallel import sharded
+    from multigridcmt.config import SolverConfig
+    from multigridcmt.parallel import sharded
 
     base = dict(ndim=2, k=6, dtype=jnp.float64, smoother="rbgs",
                 agglom_rows=8)
@@ -191,13 +189,13 @@ def test_eigensolve_resume_beats_cold(tmp_path):
 
 def test_sharded_resume_without_b_raises(tmp_path):
     """ShardedSolver resume with no RHS raises the contract error, not
-    an opaque TypeError (ADVICE.md round-4)."""
+    an opaque TypeError."""
     import jax
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from multigridcmt_tpu.config import SolverConfig
-    from multigridcmt_tpu.parallel import sharded
+    from multigridcmt.config import SolverConfig
+    from multigridcmt.parallel import sharded
 
     solver = sharded.ShardedSolver(
         SolverConfig(ndim=2, k=6, dtype=jnp.float64, agglom_rows=8),
